@@ -9,7 +9,7 @@ Two workloads:
    reference's test_data (compare_scaffold oracle-exact in tests).
 2. synthetic N-sample sweep: N profiles over S scaffolds x L bp with
    planted SNVs, run once with the host (u64 popcount) overlap engine
-   and once with the device (MXU bit-matmul) engine
+   and once with the device (bf16 bit-matmul) engine
    (kernels/compare.py). Reported per engine: total wall and the
    overlap-stage wall; pairs_per_sec = scaffold-pair-comparisons/s.
 
@@ -184,16 +184,8 @@ def bench_ecoli():
 
 
 def main():
-    import jax
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             ".jax_cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
-    except Exception:
-        pass
+    from instrain_tpu.cache import enable_compile_cache
+    enable_compile_cache()
     result = {
         "metric": "compare_scaffold_pairs_per_sec",
         "ecoli_fixture": bench_ecoli(),

@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """
 Multi-host scaling-efficiency benchmark (BASELINE target: >=0.8
-efficiency from 1 host to 2 hosts). Real TPU pods are not reachable from
-this environment, so the 2-host DCN topology is SIMULATED faithfully on
-CPU: two jax.distributed processes on localhost, each pinned to its own
-physical core (this host has exactly 2), running the REAL multi-host
+efficiency from 1 host to 2 hosts). A CPU-only simulation, not a GPU
+measurement: two jax.distributed processes on localhost, each pinned to
+its own physical core, running the REAL multi-host
 profile() path — greedy scaffold ownership, per-host profiling, pickled
 payload allgather before table assembly (profile/pipeline.py multi_host
 branch; reference analogue: the whole process-pool runtime, SURVEY
@@ -84,14 +83,12 @@ def run_workers(nproc, bam, fasta, workdir, tag):
 
 def main():
     import bench_batch
-    bench_batch.S, bench_batch.L = S, L
     workdir = tempfile.mkdtemp(prefix="bench_mh_")
-    fasta, bam, n_pairs = bench_batch.synth(workdir)
+    fasta, bam, n_pairs = bench_batch.synth(workdir, n_scaffolds=S,
+                                            length=L)
 
-    # this host's wall times swing ~±30% run to run (shared memory bus,
-    # page cache, background load); MIN over repeats estimates the
-    # clean-machine time, the same convention every bench here uses for
-    # relay weather (CLAUDE.md)
+    # CPU wall times swing run to run (shared memory bus, page cache,
+    # background load); MIN over repeats estimates the clean-machine time
     repeats = int(os.environ.get("INSTRAIN_MH_REPEATS", 3))
     ones, twos = [], []
     for rep in range(repeats):

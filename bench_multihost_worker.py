@@ -1,5 +1,6 @@
 """
-Worker for bench_multihost.py: run the REAL profile() pipeline (warm +
+Worker for bench_multihost.py (a CPU-only simulation): run the REAL
+profile() pipeline (warm +
 timed steady) as one host of an nproc-process jax.distributed job, and
 print one JSON line with the steady wall time and the per-checkpoint
 phase segmentation parsed back from the run's own log (obs/logging.py
@@ -70,8 +71,8 @@ def main():
         cfg = ProfileConfig(output=f"{outbase}.{tag}.IS",
                             skip_plot_generation=True,
                             skip_genome_wide=True)
-        # the production multi-host engine (what a TPU pod runs):
-        # vmapped per-bucket launches + streaming hd5 writes
+        # the production multi-host engine: vmapped per-bucket
+        # launches + streaming hd5 writes
         cfg.engine = "batch"
         pl.PHASES = fine = {}
         extra.clear()

@@ -4,11 +4,10 @@ Scaling harness: the REAL profile step (run_site_stats_hybrid — the same
 function profile() dispatches to, position-sharded via
 ProfileConfig.mesh_devices) at 1..8 devices on a virtual CPU mesh.
 
-Real multi-chip hardware is not reachable from this environment (one TPU
-chip); this measures the SPMD partitioning overhead / scaling shape of
-the step itself, and the driver's dryrun_multichip validates multi-chip
-correctness. Prints one JSON line per mesh size plus summary efficiency
-figures. Not run by the driver.
+A CPU-only simulation: it measures the SPMD partitioning overhead and
+scaling shape of the step itself, not a GPU. `python chip_smoke.py
+--multi` checks the same sharded paths on real devices. Prints one JSON
+line per mesh size plus summary efficiency figures.
 """
 
 import json
@@ -17,8 +16,12 @@ import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
-                           " --xla_force_host_platform_device_count=8")
+# 8 virtual devices may oversubscribe the host's cores: raise the CPU
+# collective rendezvous watchdog (its 40 s default aborts on thread skew)
+os.environ["XLA_FLAGS"] = (
+    os.environ.get("XLA_FLAGS", "") +
+    " --xla_force_host_platform_device_count=8"
+    " --xla_cpu_collective_call_terminate_timeout_seconds=1200")
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 

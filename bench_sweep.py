@@ -1,16 +1,14 @@
 #!/usr/bin/env python
 """
-Scaffold-count scaling sweep on the real chip (VERDICT r2 item 6):
+Scaffold-count scaling sweep on the device:
 filtered-pairs/s through the full profile() batch engine at
 S = 1 / 16 / 64 / 256 scaffolds (40 kb each, ~30x coverage), so the
 launch-vs-compute balance of the many-scaffold production path is
 measurable. The reference's equivalent knob is its process-pool size
-(inStrain profile/profile_controller.py:157-193); its 6-core cost-model
-baseline is 977 pairs/s regardless of scaffold count.
+(inStrain profile/profile_controller.py:157-193).
 
-Prints one JSON line per S plus a final summary line. Not run by the
-driver (bench.py is); results are recorded in README/docs. Respect the
-relay rules: ONE process, sequential runs, min-over-repeats.
+Prints one JSON line per S plus a final summary line. ONE process,
+sequential runs, min-over-repeats.
 """
 
 import json
@@ -29,26 +27,17 @@ REPEATS = int(os.environ.get("INSTRAIN_SWEEP_REPEATS", "3"))
 
 
 def main():
-    import jax
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             ".jax_cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from instrain_tpu.cache import enable_compile_cache
+    enable_compile_cache()
 
     import bench_batch
     import instrain_tpu.profile.pipeline as pl
     from instrain_tpu.config import ProfileConfig
 
-    baseline = bench_batch.BASELINE_PAIRS_PER_SEC
     rows = []
     for S in SWEEP:
-        bench_batch.S = S
         workdir = tempfile.mkdtemp(prefix=f"sweep_{S}_")
-        fasta, bam, n_pairs = bench_batch.synth(workdir)
+        fasta, bam, n_pairs = bench_batch.synth(workdir, n_scaffolds=S)
 
         def run(out):
             cfg = ProfileConfig(output=out, skip_plot_generation=True,
@@ -61,9 +50,9 @@ def main():
         warm = time.time() - t0
         steadies, iter_phases = [], []
         for i in range(REPEATS):
-            # per-iteration phase accounting so a relay stall is
-            # attributable (the r03 sweep hid a 709 s iteration behind
-            # min-of-N; the in-run stall watchdog also logs it live)
+            # per-iteration phase accounting so a stalled iteration is
+            # attributable (min-of-N would hide it; the in-run stall
+            # watchdog also logs it live)
             ph = {}
             pl.PHASES = ph
             t0 = time.time()
@@ -79,7 +68,6 @@ def main():
             "positions": S * bench_batch.L,
             "pairs": n_pairs,
             "pairs_per_sec": round(n_pairs / steady, 1),
-            "vs_baseline": round(n_pairs / steady / baseline, 2),
             "warmup_s": round(warm, 2),
             "steady_s": round(steady, 2),
             "steady_all_s": [round(x, 2) for x in steadies],
@@ -90,7 +78,6 @@ def main():
 
     print(json.dumps({"metric": "scaffold_scaling",
                       "unit": "read pairs/s vs scaffold count",
-                      "baseline_pairs_per_sec": round(baseline, 1),
                       "rows": rows}), flush=True)
 
 

@@ -19,7 +19,7 @@ from .config import CompareConfig, ProfileConfig
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="instrain_tpu",
-        description="TPU-native strain-level metagenome profiling "
+        description="GPU-accelerated strain-level metagenome profiling "
                     "(capability-matched to inStrain)")
     sub = parser.add_subparsers(dest="operation")
 
@@ -149,23 +149,25 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--skip_plot_generation", action="store_true",
                    help="do not draw the figures")
     g.add_argument("--engine", default="auto",
-                   choices=["auto", "dense", "hybrid", "batch", "pallas"],
+                   choices=["auto", "dense", "hybrid", "batch"],
                    help="kernel path: dense (host arrays, chunked), "
                         "hybrid (device-side compaction), batch (vmapped "
-                        "same-bucket scaffolds), pallas (Pallas TPU core "
-                        "+ dense tables); auto picks by backend")
+                        "same-bucket scaffolds); auto picks by backend "
+                        "and scaffold count")
     g.add_argument("--mesh_devices", default=0, type=int,
                    help="shard the profile kernels over the first N "
                         "devices of a 1-D mesh (position axis per "
                         "scaffold, scaffold axis for batches); 0 = "
                         "single device")
     g.add_argument("--distributed", action="store_true",
-                   help="multi-host run: initialize jax.distributed "
+                   help="multi-process run: initialize jax.distributed "
                         "(auto-detecting the cluster from the "
                         "environment, or set JAX_COORDINATOR_ADDRESS / "
-                        "JAX_NUM_PROCESSES / JAX_PROCESS_ID); each "
-                        "process profiles only the scaffolds it owns, "
-                        "tables allgather over DCN before assembly")
+                        "JAX_NUM_PROCESSES / JAX_PROCESS_ID, plus "
+                        "JAX_LOCAL_PROCESS_ID when several processes "
+                        "share a host, to bind each to one local GPU); "
+                        "each process profiles only the scaffolds it "
+                        "owns, tables allgather before assembly")
 
     # ---- compare ----
     p = sub.add_parser(
@@ -219,10 +221,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop after coverage overlap (no SNP comparing)")
     g.add_argument("--engine", default="auto",
                    choices=["auto", "host", "device"],
-                   help="overlap-count engine: device = MXU all-pairs "
-                        "bit-matmul over packed coverage masks, host = "
-                        "u64 popcount (bit-identical); auto picks by "
-                        "backend and workload size")
+                   help="overlap-count engine: device = all-pairs "
+                        "bf16 matmul over bit-packed coverage masks, "
+                        "host = u64 popcount (bit-identical); auto picks "
+                        "by backend and workload size")
 
     # ---- parse_annotations ----
     p = sub.add_parser(
@@ -384,23 +386,30 @@ def main(argv=None):
         build_parser().print_help()
         return 0
 
+    from .cache import enable_compile_cache
     from .obs.logging import setup_logger
     from .store.profile_dir import ProfileDir
 
+    enable_compile_cache()
+
     if op == "profile":
         if getattr(args, "distributed", False):
-            # multi-host: federate before the backend initializes. With
-            # no env overrides jax auto-detects managed clusters; for
-            # manual launches the three JAX_* vars mirror
+            # multi-process: federate before the backend initializes.
+            # With no env overrides jax auto-detects managed clusters
+            # (and binds each process to its local device there); for
+            # manual launches the JAX_* vars mirror
             # jax.distributed.initialize's arguments.
             if "JAX_NUM_PROCESSES" in os.environ:
                 from .parallel.distributed import init_distributed
+                local = os.environ.get("JAX_LOCAL_PROCESS_ID")
                 init_distributed(
                     coordinator_address=os.environ.get(
                         "JAX_COORDINATOR_ADDRESS"),
                     num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
-                    process_id=int(os.environ["JAX_PROCESS_ID"]))
-            else:  # managed cluster (SLURM / TPU pod): auto-detect
+                    process_id=int(os.environ["JAX_PROCESS_ID"]),
+                    local_device_ids=(None if local is None
+                                      else [int(local)]))
+            else:  # managed cluster (e.g. SLURM): auto-detect
                 import jax
                 jax.distributed.initialize()
         from .profile.pipeline import profile

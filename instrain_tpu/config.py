@@ -72,9 +72,9 @@ class ProfileConfig:
     filter: ReadFilterConfig = field(default_factory=ReadFilterConfig)
     variant: VariantConfig = field(default_factory=VariantConfig)
 
-    # TPU execution parameters (no reference equivalent; replaces the
+    # device execution parameters (no reference equivalent; replaces the
     # reference's process-pool cost model, profile_controller.py:397-465)
-    engine: str = "auto"               # auto|dense|hybrid|batch|pallas kernel path
+    engine: str = "auto"               # auto|dense|hybrid|batch kernel path
     max_mm_buckets: int = 33           # dense mm-axis width before bucketing
     position_tile: int = 16384         # positions per device tile (pad unit)
     seed: int = 42                     # PRNG key for rarefied metrics
@@ -125,7 +125,7 @@ class CompareConfig:
     bams: List[str] = field(default_factory=list)
     skip_popANI: bool = False
     # overlap-count engine: auto | host | device (kernels/compare.py —
-    # device = MXU all-pairs einsum over bit-packed masks)
+    # device = all-pairs bf16 einsum over bit-packed masks)
     engine: str = "auto"
 
 

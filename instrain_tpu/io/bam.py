@@ -33,8 +33,11 @@ def _load_lib():
     if _lib is not None:
         return _lib
     if not os.path.exists(_LIB_PATH):
-        subprocess.run(["make"], cwd=os.path.abspath(_NATIVE_DIR), check=True,
-                       capture_output=True)
+        # build from native/ on first use; the compiler's errors reach
+        # stderr as they are
+        subprocess.run(["make", "--no-print-directory"],
+                       cwd=os.path.abspath(_NATIVE_DIR), check=True,
+                       stdout=subprocess.DEVNULL)
     lib = ct.CDLL(_LIB_PATH)
     lib.bd_open.restype = ct.c_void_p
     lib.bd_open.argtypes = [ct.c_char_p, ct.c_int]

@@ -1,6 +1,6 @@
 """
-Compare-stack device kernel: all-pairs coverage-overlap counting on the
-MXU.
+Compare-stack device kernel: all-pairs coverage-overlap counting as a
+matrix product.
 
 The compare operation's dense work is, per scaffold and mm level, the
 pairwise overlap of per-sample coverage-threshold masks
@@ -8,16 +8,17 @@ pairwise overlap of per-sample coverage-threshold masks
 `coverage_overlap`, `compared_bases_count`, and the conANI/popANI
 denominators all derive from |t_i & t_j| and |t_i| + |t_j|). For N
 samples that is an N x N Gram matrix of 0/1 vectors — exactly a matmul:
-stack the masks as a bf16 0/1 tensor and let the MXU compute
-einsum("nml,kml->mnk") with f32 accumulation (exact: products are 0/1
-and per-chunk sums stay far below 2^24).
+stack the masks as a bf16 0/1 tensor and compute
+einsum("nml,kml->mnk") with f32 accumulation (XLA hands it to cuBLAS on
+the GPU). It is exact: bf16 holds 0 and 1 exactly, products are 0/1,
+and per-chunk sums stay far below 2^24, so no TF32 rounding can enter.
 
 The wire format is bit-packed (uint8, 8 positions/byte) so h2d moves
 L/8 bytes per (sample, mm); unpacking to bf16 happens on device. Long
 scaffolds are chunked on the position axis and the int32 partial counts
 accumulate on host — the result is exact for any length.
 
-Host fallback (no TPU / tiny workloads): uint64 AND + popcount
+Host path (CPU backend / small workloads): uint64 AND + popcount
 (np.bitwise_count), identical integers.
 """
 

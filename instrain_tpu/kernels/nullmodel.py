@@ -21,7 +21,7 @@ value; for bit-parity against a specific inStrain table, load it with
 The model is materialized as a dense int32 LUT `thresholds[coverage]`
 (coverage 0..max_coverage; out-of-range coverage uses the max threshold,
 matching model[-1] = max(model.values()) in the reference), which maps
-directly onto TPU gather lookups.
+directly onto device gather lookups.
 """
 
 from __future__ import annotations

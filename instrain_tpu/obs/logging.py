@@ -80,6 +80,33 @@ def log_failure(failure_type: str, unit: str, detail: str = ""):
     logging.debug(f"{t} DEBUG FAILURE {failure_type} {unit} {detail}")
 
 
+class _NoBar:
+    """Stand-in for a tqdm bar where tqdm is not installed."""
+
+    def __init__(self, iterable=None):
+        self._iterable = iterable
+
+    def __iter__(self):
+        return iter(self._iterable)
+
+    def update(self, n: int = 1):
+        pass
+
+    def close(self):
+        pass
+
+
+def progress(iterable=None, desc: str = "", total: Optional[int] = None):
+    """A tqdm progress bar (shown on a terminal only) where tqdm is
+    installed; otherwise `desc` is logged once and the bar is silent."""
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        logging.info(desc)
+        return _NoBar(iterable)
+    return tqdm(iterable, desc=desc, total=total, disable=None)
+
+
 def setup_logger(loc: str):
     """DEBUG -> file, INFO -> console (reference: controller.py:445-475)."""
     if logging.getLogger("").handlers:

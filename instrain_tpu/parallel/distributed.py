@@ -8,9 +8,11 @@ Topology model:
     profile_controller.py:460-465) and decodes only the BAM records of its
     scaffolds (the .bai/linear index makes per-scaffold ranges seekable;
     full-scan decode is the fallback).
-  - devices within a host/slice (ICI): the position axis of each scaffold
-    tiles across local devices (parallel/mesh.py); scaffold aggregates
-    psum over ICI.
+  - devices within a host: the position axis of each scaffold tiles
+    across local devices (parallel/mesh.py); scaffold aggregates psum
+    over the device links. Where several processes share a host, each is
+    bound to one local device (`local_device_ids`), since a JAX process
+    otherwise reserves memory on every device it sees.
   - final table assembly: per-host pandas tables concatenate via
     process_allgather (host gather over DCN).
 
@@ -29,14 +31,17 @@ import numpy as np
 
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None):
-    """Initialize jax.distributed (no-op for single-process runs)."""
+                     process_id: Optional[int] = None,
+                     local_device_ids: Optional[Sequence[int]] = None):
+    """Initialize jax.distributed (no-op for single-process runs).
+    `local_device_ids` limits this process to those devices of its host."""
     import jax
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
     logging.info(f"jax.distributed: process {jax.process_index()} of "
                  f"{jax.process_count()}, {jax.local_device_count()} local "
                  f"devices")

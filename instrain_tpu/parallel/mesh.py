@@ -1,12 +1,12 @@
 """
-Multi-chip execution of the real profile compute path over a
+Multi-device execution of the real profile compute path over a
 jax.sharding.Mesh.
 
 The reference parallelizes profiling with process pools over 10 kb genome
 windows plus a scaffold-level merge stage
-(profile/profile_controller.py:157-193,243-271). The TPU-native
-equivalent shards the SAME fused kernels the single-chip engines run —
-multi-chip is an execution placement, not a separate code path:
+(profile/profile_controller.py:157-193,243-271). The equivalent here
+shards the SAME fused kernels the single-device engines run —
+multi-device is an execution placement, not a separate code path:
 
 - position sharding ("pos"): a scaffold's count tensor [M, 4, L] shards
   along L. Every heavy quantity in kernels.sitestats.site_stats is

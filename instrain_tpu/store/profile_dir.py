@@ -10,7 +10,8 @@ pickle, special (hd5: one gzip'd dataset per "scaffold::mm" holding
 
 This cross-compatibility is deliberate: profiles written here load through
 inStrain's Python API and vice versa (the golden test fixtures are read
-with this class).
+with this class). h5py is imported only where a special attribute is
+written or read.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import os
 import pickle
 from typing import Dict, List, Optional
 
-import h5py
 import numpy as np
 import pandas as pd
 
@@ -31,7 +31,7 @@ from .. import __version__
 SPECIAL_SERIES = {"covT", "snpsCounted", "clonT", "clonTR"}
 
 # hd5 "special" dataset compression. The reference writes gzip
-# (SNVprofile.py:717-748); lzf is ~2x faster to write on this host, still
+# (SNVprofile.py:717-748); lzf is ~2x faster to write, still
 # a standard h5py filter the reference's h5py reads transparently
 # (cross-compat tests read our profiles through the reference's
 # SNVprofile), and selective per-scaffold loading is unaffected.
@@ -132,9 +132,8 @@ class ProfileDir:
     def open_special_stream(self, name: str, description: str
                             ) -> "SpecialStreamWriter":
         """Incremental writer for a 'special' hd5 attribute: one
-        scaffold's mm->Series dict per write() call, so the (slow on
-        this host) compressed writes overlap upstream work instead of
-        lumping after it. Same on-disk format as store(..., 'special');
+        scaffold's mm->Series dict per write() call, so the compressed
+        writes overlap upstream work instead of lumping after it. Same on-disk format as store(..., 'special');
         the attribute registers on close()."""
         return SpecialStreamWriter(self, name, description)
 
@@ -226,6 +225,7 @@ class ProfileDir:
     # ---------- special (hd5) ----------
 
     def _store_special(self, name: str, obj) -> str:
+        import h5py
         fileloc = self._fileloc(name) + ".hd5"
         if name in SPECIAL_SERIES:
             with h5py.File(fileloc, "w") as f:
@@ -254,6 +254,7 @@ class ProfileDir:
         return fileloc
 
     def _load_special(self, location: str, name: str, **kwargs):
+        import h5py
         scaffolds = kwargs.get("scaffolds", [])
         if name in SPECIAL_SERIES or (name not in
                                       ("scaff2pair2mm2SNPs",
@@ -285,6 +286,7 @@ class ProfileDir:
     def covt_scaffolds(self):
         """Scaffolds present in covT without loading it
         (reference: _get_covt_keys, SNVprofile.py:636-648)."""
+        import h5py
         adb = self._get_attributes()
         filename = os.path.join(self.get_location("raw_data"),
                                 os.path.basename(adb.loc["covT", "value"]))
@@ -347,6 +349,7 @@ class SpecialStreamWriter:
     following it serially."""
 
     def __init__(self, isdir: ProfileDir, name: str, description: str):
+        import h5py
         self._isdir = isdir
         self._name = name
         self._description = description

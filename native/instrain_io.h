@@ -5,7 +5,7 @@
  * wrapping: a per-record table (pairing/filter fields, mirroring what the
  * reference extracts via pysam in inStrain/filter_reads.py:885-955) and a
  * per-aligned-base "event" stream (ref position, base code, quality) that
- * feeds the TPU pileup kernels (replacing pysam's pileup engine used in
+ * feeds the device pileup kernels (replacing pysam's pileup engine used in
  * inStrain/profile/profile_utilities.py:150-153).
  *
  * Quality post-processing implemented here, matching the reference's pileup

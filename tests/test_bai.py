@@ -39,12 +39,8 @@ def test_make_bai_ranged_decode_parity(tmp_path):
                                      read_ref_extents)
     from instrain_tpu.io.bam import decode_bam
 
-    old_s, old_l = bench_batch.S, bench_batch.L
-    bench_batch.S, bench_batch.L = 5, 6000
-    try:
-        fasta, bam_path, _ = bench_batch.synth(str(tmp_path))
-    finally:
-        bench_batch.S, bench_batch.L = old_s, old_l
+    fasta, bam_path, _ = bench_batch.synth(str(tmp_path), n_scaffolds=5,
+                                           length=6000)
 
     bai = find_bai(bam_path)
     assert bai and os.path.exists(bai)  # synth writes it via make_bai

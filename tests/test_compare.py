@@ -121,7 +121,7 @@ def test_full_compare_pipeline(tmp_path, ref_null_model):
 
 
 def test_overlap_counts_device_matches_host():
-    """kernels/compare.py: the MXU einsum over bit-packed masks must
+    """kernels/compare.py: the bf16 einsum over bit-packed masks must
     produce the same integers as the u64-popcount host path (and both
     must equal the naive boolean reduction), including ragged lengths
     that exercise the packing pad and the position-chunk loop."""
